@@ -1,19 +1,18 @@
-"""End-to-end example: the SFMoMA demo scene -> novel views on the TPU.
+"""End-to-end example: the seeded flagship scene -> novel views.
 
-The TPU-native analog of the reference demo's default scene bootstrap
-(reference: index.html:110-170 scene constants; assets
-public/assets/rgb.jpg + depth.png at 1280x800). Authors the scene as a LIF
-container in memory, loads it through the public API, renders an identity
-view, a translated novel view, an orbit view and an extreme far view, saves
-PNGs, and self-checks:
+The analog of the reference demo's default scene bootstrap (reference:
+index.html:110-170 scene constants, 1280x800). The scene is generated
+from a seed (lif_tpu.io.synthetic) with the demo's constants, authored
+as a LIF container in memory, loaded through the public API, and
+rendered at an identity view, a translated novel view, an orbit view and
+an extreme far view; PNGs are saved and the run self-checks:
 
-  1. identity pose reproduces the input JPEG (center crop PSNR > 45 dB)
+  1. identity pose reproduces the authored image (center crop > 45 dB)
   2. novel view shows parallax (finite, covered, differs from identity)
   3. extreme pose (100 m away) yields zero coverage and no NaNs
 
-Usage:
-  PYTHONPATH=/root/repo:$PYTHONPATH python examples/render_sfmoma.py \
-      --out /tmp/verify_out [--mode fast|raycast] [--frames N]
+Usage (from the repository root; needs Pillow for the LIF container):
+  python examples/render_sfmoma.py --out out_dir [--mode fast|raycast]
 """
 
 from __future__ import annotations
@@ -26,43 +25,29 @@ import time
 
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-def sfmoma_assets(small: bool = False, scale: int = 1):
-    """The SFMoMA demo assets (reference: public/assets, scene constants
-    index.html:142-168). Returns (jpeg_bytes, depth_png_bytes, w, h);
-    `scale` downsamples by that integer factor (small=True is scale 4,
-    kept for quick CPU runs; scale=2 gives 640x400 — still 128-divisible,
-    so the rotated target-ray tier stays eligible)."""
-    import io
 
-    from PIL import Image
+def sfmoma_assets(small: bool = False, scale: int = 1, seed: int = 0):
+    """The flagship scene encoded as the demo's assets: (sRGB JPEG bytes,
+    8-bit inverse-depth PNG bytes, w, h). `scale` divides both sides
+    (small=True is scale 4, for quick CPU runs; scale 2 gives 640x400 —
+    still 128-divisible, so the rotated target-ray tier stays eligible)."""
+    from lif_tpu.io.decode import encode_jpeg, encode_png
+    from lif_tpu.io.synthetic import flagship_scene
 
-    jpeg = open("/root/reference/public/assets/rgb.jpg", "rb").read()
-    depth = open("/root/reference/public/assets/depth.png", "rb").read()
-    w, h = Image.open("/root/reference/public/assets/rgb.jpg").size
-    if small:
-        scale = 4
-    if scale != 1:
-        im = Image.open(io.BytesIO(jpeg)).resize((w // scale, h // scale))
-        buf = io.BytesIO()
-        im.save(buf, "JPEG", quality=95)
-        jpeg = buf.getvalue()
-        dm = Image.open(io.BytesIO(depth)).resize((w // scale, h // scale))
-        buf = io.BytesIO()
-        dm.save(buf, "PNG")
-        depth = buf.getvalue()
-        w, h = w // scale, h // scale
-    return jpeg, depth, w, h
+    scene = flagship_scene(seed, 4 if small else scale)
+    h, w = scene.disp.shape
+    return encode_jpeg(scene.rgb, quality=95), encode_png(scene.disp), w, h
 
 
 def build_sfmoma_lif(position=(0, 0, 0), small: bool = False,
-                     scale: int = 1) -> bytes:
-    """Author the SFMoMA scene as an in-memory LIF container — THE single
-    source of the scene constants for the benches and examples
-    (reference: index.html:142-168)."""
+                     scale: int = 1, seed: int = 0) -> bytes:
+    """Author the flagship scene as an in-memory LIF container with the
+    demo's constants (reference: index.html:142-168)."""
     from lif_tpu.io import container
 
-    jpeg, depth, w, h = sfmoma_assets(small, scale)
+    jpeg, depth, w, h = sfmoma_assets(small, scale, seed)
     meta = {
         "views": [{
             "image": {"blob_id": -1},
@@ -92,7 +77,7 @@ def psnr(a, b):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="/tmp/verify_out")
+    ap.add_argument("--out", default="render_out")
     ap.add_argument("--mode", default="raycast", choices=["fast", "raycast"])
     ap.add_argument("--frames", type=int, default=0,
                     help="also render an N-frame orbit trajectory")
@@ -127,10 +112,10 @@ def main(argv=None):
     img_id = sync(render(proj, cam([0.0, 0.0, 0.0]), mode=args.mode, **kwargs))
     print(f"identity render (incl compile): {time.time() - t0:.1f}s")
     save_png(img_id, os.path.join(args.out, "identity.png"))
-    from PIL import Image
+    from lif_tpu.io.decode import decode_rgb
 
-    ref = np.asarray(Image.open("/root/reference/public/assets/rgb.jpg"),
-                     np.float32)[::-1] / 255.0
+    # the authored (JPEG-decoded) image, display-encoded like the render
+    ref = np.asarray(decode_rgb(sfmoma_assets()[0], linear=False))
     crop = (slice(160, -160), slice(160, -160))
     p = psnr(np.asarray(img_id)[crop][..., :3], ref[crop])
     report["identity_psnr_dB"] = round(p, 2)

@@ -1,10 +1,10 @@
-"""lif_tpu: a TPU-native (JAX/XLA/Pallas) light-field-image view-synthesis
+"""lif_tpu: a JAX (XLA + Pallas) light-field-image view-synthesis
 framework.
 
 Re-creation of the capabilities of the LIF-renderer reference library
 (THREE.js/WebGL) as pure jit-compiled functions of
 (scene arrays, camera) -> image, batched by broadcasting and sharded over
-TPU meshes.
+device meshes.
 
 Public surface mirrors the reference's exports (reference: src/index.ts:4-19):
   HoloProjector            -> Projector / projector_from_arrays

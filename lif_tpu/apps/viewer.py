@@ -7,7 +7,7 @@ rendered as a batch, optionally sharded across devices.
 
 CLI:
     python -m lif_tpu.apps.viewer scene.lif --mode orbit --frames 24 \
-        --out /tmp/frames --render raycast
+        --out frames --render raycast
 """
 
 from __future__ import annotations
@@ -67,9 +67,9 @@ def render_trajectory(
 
     mode='fast' renders the trajectory in `chunk`-frame batches through
     render_fast_batch — ONE device dispatch per chunk instead of one per
-    frame, which amortizes the host->device dispatch latency that
-    dominates per-frame rendering (docs/TPU_NOTES.md); lateral chunks
-    additionally share one source read per tile inside the Pallas march."""
+    frame, which amortizes the host-side dispatch cost of per-frame
+    rendering; on a GPU a lateral chunk is one launch of the march
+    kernel."""
     def _cam(i):
         return Camera.create(
             camera_template.width,
@@ -120,7 +120,9 @@ def main(argv=None):
     parser.add_argument("--out", default="./frames")
     parser.add_argument("--view", type=int, default=0, help="view index")
     args = parser.parse_args(argv)
+    from .. import backend
 
+    backend.configure_compile_cache()
     result = load_lif_file(args.lif)
     projector = result.projectors[args.view]
     center = (

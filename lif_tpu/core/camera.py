@@ -10,12 +10,12 @@ skew, consumed directly by the render kernels.
 from __future__ import annotations
 
 import numpy as np
-from flax import struct
+from .pytree import pytree_dataclass, static_field
 
 __all__ = ["Camera", "focal_from_fov", "fov_from_focal", "frustum_corners"]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Camera:
     """A pinhole render camera (scene convention: -Z forward, +Y up).
 
@@ -32,8 +32,8 @@ class Camera:
     rotation: np.ndarray
     focal_px: np.ndarray
     skew: np.ndarray
-    width: int = struct.field(pytree_node=False)
-    height: int = struct.field(pytree_node=False)
+    width: int = static_field()
+    height: int = static_field()
 
     @classmethod
     def create(

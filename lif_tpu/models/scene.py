@@ -2,7 +2,7 @@
 
 The reference's HoloLayerGroup spawns one HoloRenderer per LDI layer with
 renderOrder = layer index (reference: src/HoloLayerGroup.ts:35-66). In the
-TPU design the Projector already carries its layer stack as batched arrays
+JAX design the Projector already carries its layer stack as batched arrays
 and the kernels composite front-to-back in one pass, so LayerGroup here is
 the scene-level convenience wrapper: render-mode management, per-group
 settings, and stats — the same public knobs as the reference

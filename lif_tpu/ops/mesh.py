@@ -1,6 +1,6 @@
 """Connected-mesh triangle rasterizer: the reference's default render mode.
 
-TPU-native equivalent of the reference's connected-mesh path (reference:
+The JAX equivalent of the reference's connected-mesh path (reference:
 src/shaders/holoVertex.glsl:68-102 corner depths, :155-163 corner
 unprojection, :192-229 gradient cull; topology from
 src/HoloRenderer.ts:809-858 — a (W+1)x(H+1) corner grid, each pixel quad

@@ -1,14 +1,13 @@
-"""Two-phase march for ROTATED (and zoomed) novel views — round 3's
-production rotated path, replacing the K=40 matmul sweep of
-ops/sweep_fast.render_rotated as the quality/speed bottleneck
-(VERDICT r2 item 1).
+"""Two-phase march for ROTATED (and zoomed) novel views — the
+rotated fallback tier, replacing the K=40 matmul sweep of
+ops/sweep_fast.render_rotated as the quality/speed bottleneck.
 
 A camera rotation about its own center never changes which surface each
 ray hits — only the image-plane parameterization
 (reference: src/shaders/rayCastMonoLDI.glsl:219-297 runs the same march
 for any FSKR2). So:
 
-  Phase A (gather-free, Pallas): solve the surface inverse depth with
+  Phase A: solve the surface inverse depth with
     the SCALED first-crossing march (ops/sweep_scaled) in an
     intermediate frame sharing the target camera's POSITION but the
     projector's ORIENTATION and FOCAL — the aligned frame where every
@@ -24,7 +23,7 @@ for any FSKR2). So:
     recurrence over only that bracket against the ORIGINAL source
     disparity (_bracket_march: ~10 bilinear disp reads, fused
     step-back/halving exactly like rayCastMonoLDI.glsl:253-274) — the
-    march-exact replacement for round 3's edge-aware depth
+    march-exact replacement for an edge-aware depth
     interpolation, whose intermediate-lattice bound capped this tier at
     ~34-38 dB. Finally compute the exact projective source coordinate
     at the solved invZ and fetch the color (one packed patch-row
@@ -436,10 +435,9 @@ def render_rotated_march_batch(
     # lattice-seeded exact march (see _bracket_march): the corner depths
     # only BRACKET the crossing; the solved invz comes from the
     # reference recurrence against the original source disparity
-    unroll = jax.default_backend() != "cpu"
     invz_hat, invz2_m, conf = _bracket_march(
         disp, qx, qy, den, c_vec, quad, izmin, izmax, w, h,
-        bracket_steps, unroll,
+        bracket_steps, False,
     )
     found_hat = (
         (jnp.sum((quad > 0.0).astype(jnp.int32), axis=-1) > 0)

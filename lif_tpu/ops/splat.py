@@ -1,17 +1,16 @@
 """Forward-warp splat renderer: the mesh/billboard path as a scatter
 rasterizer.
 
-TPU-native equivalent of the reference's mesh render mode
+The JAX equivalent of the reference's mesh render mode
 (reference: src/shaders/holoVertex.glsl + holoFragment.glsl, geometry from
 HoloRenderer.ts:809-858): every source pixel is unprojected with its
 decoded depth, transformed into the target view, and splatted with a
 square pixel footprint into a z-buffered image. Instead of a vertex/
 fragment pipeline, this is: dense elementwise unproject/project math over
 the source grid, scatter-min into a depth buffer, then a masked color
-resolve — the "Pallas depth-tested scatter rasterizer" role from
-BASELINE.json's north star, expressed with XLA scatter ops (segment-min)
-so it runs on any backend; a Pallas specialization can swap in underneath
-without changing this contract.
+resolve — the depth-tested scatter rasterizer role from BASELINE.json's
+north star, expressed with XLA scatter ops (segment-min) so it runs on
+any backend.
 """
 
 from __future__ import annotations

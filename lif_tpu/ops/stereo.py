@@ -1,6 +1,6 @@
 """Two-view (stereo) LDI rendering: view weighting, occlusion fill, blend.
 
-TPU-native equivalent of the stereo raycast kernel
+The JAX equivalent of the stereo raycast kernel
 (reference: src/shaders/rayCastStereoLDI.glsl:321-450): both views' ray
 marches run as dense array programs sharing the output grid; the
 baseline-projection weight, the sequential occlusion fill, and the
@@ -14,6 +14,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from .. import backend as _backend
 from ..core.color import linear_to_srgb
 from ..core.transforms import mat_from_focal, mm
 from .raycast import (
@@ -98,6 +99,8 @@ def render_stereo(
     view. invz ranges must already be baseline-normalized. Returns
     (H, W, 4), GL-oriented.
     """
+    if unroll is None:
+        unroll = _backend.raycast_unroll(num_steps)
     s2x, s2y = _pixel_grid(out_w, out_h)
     fskr2 = build_fskr2(f2, float(out_w), float(out_h), skew2)
     c2 = jnp.zeros(3, dtype=jnp.float32)

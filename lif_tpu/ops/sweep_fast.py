@@ -1,17 +1,16 @@
-"""Gather-free fast renderer: MXU plane sweep for aligned views.
+"""Gather-free fast renderer: matmul plane sweep for aligned views.
 
-The TPU's weak spot is per-pixel gathers (~7 ms per 1M-element take, see
-docs/TPU_NOTES.md) — the exact ray march (ops/raycast.py) spends 40x4
-gathers/pixel and lands at ~0.7 fps at 1280x800. This module renders the
-same scene with NO gathers at all:
+The legacy fallback tier: the exact ray march (ops/raycast.py) spends
+40x4 gathers/pixel; this module renders the same scene with NO gathers
+at all:
 
   * In a SOURCE-ALIGNED frame (target camera rotated to the projector's
     orientation, matched intrinsics), every inverse-depth plane's warp is a
     uniform scale+shift:  s1 = C.xy*invZ + (1 - C.z*invZ)*s2.
   * A uniform scale+shift resample is a banded linear operator per axis ->
     per-plane (W_out x W_in) and (H_out x H_in) bilinear matrices, applied
-    as bf16 batched MATMULS on the MXU.
-  * Occupancy/compositing are elementwise (VPU), streamed over plane
+    as bf16 batched MATMULS.
+  * Occupancy/compositing are elementwise, streamed over plane
     chunks so intermediates stay small.
   * Rotation is factored out exactly: a rotation about the camera center
     is a homography of the image plane, applied once at the end (or
@@ -274,7 +273,7 @@ def render_sweep_aligned(
         # ONE bilinear gather of [rgb, mask] at the solved parallax
         # position — march-like color accuracy at the cost of a single
         # gather pass. RGB+mask are packed into one int32 channel so the
-        # gather is 4 taps, not 16 (~28 ms at 1M px on v5e).
+        # gather is 4 taps, not 16.
         from .sampling import bilinear_sample_packed, pack_rgbm
 
         invz_hat = invz_star
@@ -454,8 +453,6 @@ def render_rotated(
         invZ* (one bilinear f32 gather), compute the exact source texture
         coordinate from the full projective raycast geometry, and fetch the
         color (one packed bilinear gather).
-
-    ~70 ms/frame at 1280x800 on v5e (~14 fps) vs 1.5 s for the march.
 
     Args mirror render_sweep_aligned plus ``rot1``: the (3, 3) camera-local
     projector rotation (R_cam^T R_proj, scene convention).

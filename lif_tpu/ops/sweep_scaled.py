@@ -1,6 +1,6 @@
-"""Gather-free first-crossing plane march for SCALED warps.
+"""First-crossing plane march for SCALED warps.
 
-Round 3's generalization of ops/sweep_march.py: for an ALIGNED view
+The generalization of ops/sweep_march.py: for an ALIGNED view
 (relative rotation identity) with arbitrary translation (cx, cy, cz) and
 focal ratio fr = f1/f2, the source position of output pixel (j, i) at
 inverse depth v is separable-affine per axis
@@ -15,19 +15,16 @@ in invZ for any P, C; the aligned decomposition of ops/sweep_fast.py):
     ty(v) = by - f1 * cy * v + dy_user
 
 with bx = (src_w - out_w)/2, cx0 = (out_w - 1)/2 (and y analogues): both
-the translation AND the scale displacement are affine in v. A separable
-affine warp needs NO gathers: the integer part is a dynamic roll plus a
-handful of static candidate slices, the fraction a per-row/column hat
-weight — the decomposition the Pallas kernel
-(ops/pallas/sweep_scaled.py) executes out of VMEM. This module holds the
-host-side plan/table math, the CPU oracle (gather-based, bit-matching
-semantics), and the finalize stage; it is what upgrades rotated / orbit /
+the translation AND the scale displacement are affine in v. This module
+holds the host-side plan/table math, the XLA
+implementation (gather-based; it runs on every backend), and the
+finalize stage; it is what upgrades rotated / orbit /
 dolly / zoom poses from the ~35 dB matmul sweep to march-class fidelity.
 
 Unlike the lateral translation case there is no snap grid (per-pixel
 sampling phases differ under scale), so exactness comes from DENSITY: the
 grid places one plane per `step_px` pixels of maximum displacement change
-(parallax_step_grid), and the kernel's in-bracket `refine` sub-sweep
+(parallax_step_grid), and the in-bracket `refine` sub-sweep
 multiplies the effective density only where crossings happen.
 """
 
@@ -57,7 +54,7 @@ __all__ = [
     "hit_and_alpha_scaled",
 ]
 
-_LC = 128  # lane count: the kernel's y-chunk height
+_LC = 128  # y-chunk height of the planner's window budget
 
 
 def _round_up(n: int, q: int) -> int:
@@ -79,7 +76,7 @@ class ScaledPlan(NamedTuple):
     out_h: int
     pad_lo_x: int      # left x pad; x displacement clip low = -pad_lo_x
     tab_span_x: int    # max padded x displacement (clip high + margin)
-    tw: int            # x band width (sublanes per tile)
+    tw: int            # x band width of a planner tile
     mx: int            # x candidate count (covers scale spread over a band)
     ky_lo: int         # y window chunks below the output chunk
     ky_hi: int         # y window chunks above (incl. the +1 bilinear tap)
@@ -89,11 +86,10 @@ class ScaledPlan(NamedTuple):
 
     @property
     def twx(self) -> int:
-        """Sublane extent of the per-plane x slab: band + candidates +
-        the 8-aligned base remainder + the bilinear tap, rounded up to a
-        POWER-OF-TWO number of sublane tiles — `tpu.dynamic_rotate`
-        (the residual roll) silently miscompiles on non-power-of-two
-        tile counts (probed, scratch/probe_roll4.py)."""
+        """Extent of the per-plane x slab of the earlier tiled kernel:
+        band + candidates + the 8-aligned base remainder + the bilinear
+        tap, rounded up to a power-of-two number of 8-row tiles. Kept
+        because it sizes the padded source (padded_w)."""
         need = self.tw + self.mx + 9
         t = 1
         while t * 8 < need:
@@ -102,7 +98,7 @@ class ScaledPlan(NamedTuple):
 
     @property
     def bw(self) -> int:
-        """DMA'd window sublanes: any in-range 8-aligned base + slab."""
+        """Window width: any in-range 8-aligned base + slab."""
         return _round_up(self.tab_span_x + self.twx + 8, 8)
 
     @property
@@ -167,8 +163,9 @@ def scaled_plan(
 ) -> ScaledPlan:
     """Build the static plan from host-known pose bounds.
 
-    Raises ValueError when the pose family exceeds what the kernel tiles
-    can cover (scale spread needing > mx_cap candidates even at tw=8, or
+    Raises ValueError when the pose family exceeds the planner's tile
+    budgets (sized for an earlier tiled kernel, kept so routing does not
+    change) (scale spread needing > mx_cap candidates even at tw=8, or
     a y displacement beyond ky_cap 128-row chunks) — callers fall back to
     the matmul sweep there.
     """
@@ -217,7 +214,7 @@ def scaled_plan(
     my_hi = max(0, int(math.ceil(dy_hi)) + 2)
     my = int(math.ceil(e_abs * (_LC - 1))) + 2
     ky_lo = -(-my_lo // _LC)
-    # headroom for the kernel's y-stage slab: an 8-aligned base at
+    # headroom for the y-stage slab: an 8-aligned base at
     # bym_max plus the round8(lc + my + 16) slab extent must fit
     ky_hi = -(-(my_hi + my + 23) // _LC)
     if ky_lo > ky_cap or ky_hi > ky_cap:
@@ -389,8 +386,8 @@ def finalize_scaled(
 
 
 def _pad_stack(plan: ScaledPlan, rgb, disp, mask):
-    """Edge-replicate-padded channel stack (5, Wp, Hp) TRANSPOSED for the
-    kernel layout: r, g, b, mask, disp along channels; x on sublanes."""
+    """Edge-replicate-padded channel stack (5, Wp, Hp), transposed:
+    r, g, b, mask, disp along channels, then x, then y."""
     h, w = disp.shape
     rgbm = jnp.concatenate(
         [rgb.astype(jnp.float32), mask.astype(jnp.float32)[..., None]],
@@ -442,9 +439,9 @@ def render_scaled_xla(
     crop_y: int = 0,
     depth_only: bool = False,
 ):
-    """CPU/XLA oracle of the scaled march: gather-based warps, identical
-    plane grid / clip / first-crossing / secant / refine semantics to the
-    Pallas kernel (which must match it; tests/test_sweep_scaled.py).
+    """XLA implementation of the scaled march: gather-based warps with
+    the plan's grid / clip / first-crossing / secant / refine semantics
+    (tests/test_sweep_scaled.py).
 
     depth_only skips color work and returns (found, invz_star) — the
     two-phase rotated path's Phase A needs only the depth solve.
@@ -581,15 +578,8 @@ def render_scaled(
     rgb, disp, mask, invz_min, invz_max, c1, f1, fr, plane_invz,
     background, plan: ScaledPlan, num_planes: int, **kw,
 ):
-    """Backend dispatch: Pallas kernel on TPU, XLA oracle elsewhere."""
-    if jax.default_backend() == "cpu":
-        return render_scaled_xla(
-            rgb, disp, mask, invz_min, invz_max, c1, f1, fr, plane_invz,
-            background, plan, num_planes, **kw,
-        )
-    from .pallas.sweep_scaled import render_scaled_pallas
-
-    return render_scaled_pallas(
+    """One pose of the scaled march (the XLA implementation)."""
+    return render_scaled_xla(
         rgb, disp, mask, invz_min, invz_max, c1, f1, fr, plane_invz,
         background, plan, num_planes, **kw,
     )
@@ -599,25 +589,18 @@ def render_scaled_batch(
     rgb, disp, mask, invz_min, invz_max, c1_b, f1, fr, plane_invz,
     background, plan: ScaledPlan, num_planes: int, **kw,
 ):
-    """Pose-batched dispatch: ONE Pallas launch on TPU (poses innermost
-    over the resident window), vmapped oracle elsewhere. c1_b: (B, 3);
-    plane_invz (K,) shared or (B, K) per-pose. Output leading dim B."""
-    if jax.default_backend() == "cpu":
-        plane_b = jnp.asarray(plane_invz, jnp.float32)
-        if plane_b.ndim == 1:
-            plane_b = jnp.broadcast_to(plane_b, (len(c1_b), plane_b.shape[0]))
-        return jax.vmap(
-            lambda cc, pp: render_scaled_xla(
-                rgb, disp, mask, invz_min, invz_max, cc, f1, fr, pp,
-                background, plan, num_planes, **kw,
-            )
-        )(jnp.asarray(c1_b, jnp.float32), plane_b)
-    from .pallas.sweep_scaled import render_scaled_batch_pallas
-
-    return render_scaled_batch_pallas(
-        rgb, disp, mask, invz_min, invz_max, c1_b, f1, fr, plane_invz,
-        background, plan, num_planes, **kw,
-    )
+    """Pose batch of the scaled march: the vmapped XLA implementation.
+    c1_b: (B, 3); plane_invz (K,) shared or (B, K) per-pose. Output
+    leading dim B."""
+    plane_b = jnp.asarray(plane_invz, jnp.float32)
+    if plane_b.ndim == 1:
+        plane_b = jnp.broadcast_to(plane_b, (len(c1_b), plane_b.shape[0]))
+    return jax.vmap(
+        lambda cc, pp: render_scaled_xla(
+            rgb, disp, mask, invz_min, invz_max, cc, f1, fr, pp,
+            background, plan, num_planes, **kw,
+        )
+    )(jnp.asarray(c1_b, jnp.float32), plane_b)
 
 
 @functools.partial(
@@ -652,12 +635,10 @@ def render_scaled_fetch_batch(
     """PRODUCTION scaled-tier render: the depth-only march + ONE packed
     bilinear color gather at the solved position.
 
-    The full-color kernel path exists (render_scaled_batch) but pays the
-    4-channel warp at every flagged plane; fetching the color once at
-    the secant-solved position is both faster (a single ~5 ms/Mpx
-    patch-row gather) and sharper (an exact bilinear sample instead of
-    the two bracketing planes' lerp — the non-snap grids' color lerp is
-    only approximate). Mirrors the two-phase rotated path's Phase B with
+    The full-color path (render_scaled_batch) lerps the two bracketing
+    planes' colours, which is only approximate off a snap grid;
+    fetching the colour once at the secant-solved position is an exact
+    bilinear sample. Mirrors the two-phase rotated path's Phase B with
     an identity homography and the depth map on its own pixel grid (no
     invz re-fetch). Returns (B, H, W, 4), or raw tuples.
     """

@@ -1,11 +1,11 @@
 """Single-phase TARGET-RAY march for rotated novel views — host math and
 the XLA reference implementation.
 
-Round-3 replacement for the two-phase rotated path (ops/rotated_march):
+The replacement for the two-phase rotated path (ops/rotated_march):
 instead of solving depth on an intermediate aligned grid and fetching it
 back through the rotation homography (whose bilinear fetch quantizes
-depth-edge positions to the intermediate lattice — the measured ~37 dB
-ceiling, BENCH_DETAILS config1), march the full-resolution source
+depth-edge positions to the intermediate lattice — a ~37 dB
+ceiling), march the full-resolution source
 DIRECTLY along every target ray. The march then has no resampling stage
 at all: first-crossing, secant, and color interpolation all happen at
 the true target-ray positions, which is march-exact by construction
@@ -26,11 +26,11 @@ affine in v with PER-ELEMENT coefficients:
     X(p, v) = AX(p) + v * DX(p)    AX = (qx + 0.5) * w - 0.5   [index]
     Y(p, v) = AY(p) + v * DY(p)    DX = (c_x - c_z * qx) * w   [px / v]
 
-The Pallas kernel (ops/pallas/sweep_target.py) evaluates the per-plane
-bilinear sample gather-free: narrow 8-column bands keep the within-band
-position spread (the homography stretch) to a few hat-weight candidates
-per axis, the same separable hat mechanism as ops/pallas/sweep_scaled
-but with per-element fields instead of per-plane scalars.
+The tier runs the dense XLA implementation (render_target_xla) on every
+backend: a per-plane bilinear gather at the per-element positions. The
+plan's window and candidate budgets (plan_from_extents) date from an
+earlier tiled kernel; they still decide eligibility, so tier routing is
+unchanged.
 
 Eligibility: the x-stage assumes X is independent of the target ROW
 (exact for yaw-only relative rotations, h01 == h21 == 0 — the orbit
@@ -67,16 +67,14 @@ __all__ = [
     "finalize_target",
 ]
 
-_LC = 128  # lane count: y-chunk height
-_TW = 8  # band width in target columns (sublanes per tile)
-_G = 16  # bands per kernel program: 16 * 8 = 128 output columns, so the
-# transposed y-stage and crossing state run at full 128-lane width
-# (the v1 per-band kernel used 8 of 128 lanes — measured 4.1 fps; the
-# grouped layout is the production shape)
+# tile geometry of the planner's window budgets (plan_from_extents)
+_LC = 128  # y-chunk height
+_TW = 8  # band width in target columns
+_G = 16  # bands per group: 16 * 8 = 128 output columns
 
 
-_COARSE_CELL = 8  # skip-table cell width in source px (kernel _COARSE)
-_TWX_CELLS = 4  # x-stage slab reach in cells (kernel _TWX // _COARSE)
+_COARSE_CELL = 8  # skip-span cell width in source px
+_TWX_CELLS = 4  # x-stage slab reach in cells
 
 
 def _round_up(n: int, q: int) -> int:
@@ -86,11 +84,9 @@ def _round_up(n: int, q: int) -> int:
 class TargetPlan(NamedTuple):
     """Static geometry of the target-ray march (host ints; jit statics).
 
-    The padded source is transposed (C, Wp, Hp). Each (group, chunk)
-    program holds a (C, bw, ylen) window resident covering _G = 16
-    bands; per-group x-origins and per-(group, chunk) y-origins come
-    from scalar-prefetch tables (the window position tracks the
-    homography, unlike the lateral kernel's uniform slide)."""
+    The XLA march reads only out_w/out_h; the window fields (bw, ylen,
+    gspan, the pads) are the eligibility budgets of an earlier tiled
+    kernel, kept so that tier routing does not change."""
 
     src_w: int
     src_h: int
@@ -98,8 +94,8 @@ class TargetPlan(NamedTuple):
     out_h: int
     pad_x: int  # symmetric x padding of the source (edge-replicated)
     pad_y: int  # symmetric y padding
-    bw: int  # resident window width (sublanes), multiple of 8
-    ylen: int  # resident window height (lanes), multiple of 128
+    bw: int  # window width, multiple of 8
+    ylen: int  # window height, multiple of 128
     nxc: int  # max x hat candidates (static unroll cap, diagonal slide)
     nyc: int  # max y hat candidates
     hp_out: int  # padded output height (lane grid)
@@ -415,16 +411,12 @@ def plan_from_extents(
     bw_cap: int = 2048,
     channels: int = 1,
 ):
-    """Build the static plan + window tables from (possibly widened)
-    extents. Raises ValueError when the extents leave the kernel's
-    budgets (candidate spans beyond the caps, window wider than
-    `bw_cap`, VMEM blowout) — the renderer falls back to the two-phase
-    rotated path.
-
-    Returns (plan, xlo (ng,) i32, ylo (ng, nc) i32) where xlo/ylo are
-    PADDED-source window origins per group / per (group, chunk), shared
-    across every pose the extents cover (the window is DMA'd once per
-    (group, chunk) and reused pose-innermost)."""
+    """Build the static plan from (possibly widened) extents. Raises
+    ValueError when the extents leave the planner's budgets (candidate
+    spans beyond the caps, window wider than `bw_cap`, window memory
+    budget) — the renderer falls back to the two-phase rotated path.
+    These eligibility rules were sized for an earlier tiled kernel and
+    are kept so that tier routing does not change."""
     hp_out = _round_up(out_h, _LC)
     nc = hp_out // _LC
     nx_need, ny_need, gspan_px = ext.nx_need, ext.ny_need, ext.gspan_px
@@ -436,7 +428,7 @@ def plan_from_extents(
         raise ValueError(f"y candidate span {ny_need} > cap {nyc_cap}")
 
     # bw covers the extent plus the slab reach (o8 never clips: the
-    # 8-aligned slab base + _TWX sublanes always fit)
+    # 8-aligned slab base + _TWX columns always fit)
     bw_need = int((xhi_sh - xlo_sh).max()) + 32 + 16
     bw = _round_up(bw_need, 8)
     if bw > bw_cap:
@@ -449,22 +441,14 @@ def plan_from_extents(
     # window height carries up to 127 rows of slack on top of the span
     ylen_need = int((yhi_sh - ylo_sh).max()) + ny_need + 8 + 128
     ylen = _round_up(max(ylen_need, 2 * _LC), _LC)
-    # VMEM budget: the resident window plus the xa16 slab (GW x ylen)
-    # and fixed state must fit a 16 MB core. The PRODUCTION tier
-    # (render_target_fetch_batch) marches depth_only — a 1-channel
-    # window (`channels` default) — so wide pose unions that would blow
-    # a 5-channel budget still ride the kernel; callers of the
-    # full-color debug mode must plan with channels=5. A pose batch
-    # whose union window exceeds the budget must fall back (two-phase
-    # tier) rather than fail at compile.
-    # kernel fixed scratch: xa16 is (GW, xap) with xap = pow2 pad of the
-    # per-plane 384-lane y window; the transposed slab is a (256, GW)
-    # value (ops/pallas/sweep_target.py v4 layout)
+    # window budget of the earlier tiled kernel (a 1-channel window for
+    # the depth-only production tier); a pose batch whose union window
+    # exceeds it falls back to the two-phase tier
     xap = 256 if min(ylen, 384) <= 256 else 512
-    vmem_bytes = (channels * bw * ylen + _G * _TW * (xap + 256)) * 4
-    if vmem_bytes > 13 * 1024 * 1024:
+    window_bytes = (channels * bw * ylen + _G * _TW * (xap + 256)) * 4
+    if window_bytes > 13 * 1024 * 1024:
         raise ValueError(
-            f"pose-union window needs {vmem_bytes / 1e6:.1f} MB VMEM "
+            f"pose-union window needs {window_bytes / 1e6:.1f} MB "
             "(> 13 MiB budget); split the pose batch or fall back"
         )
 
@@ -508,11 +492,7 @@ def plan_from_extents(
     )
     assert xlo_pad.min() >= 0 and ylo_pad.min() >= 0
     assert int((xlo_pad + bw).max()) <= src_w + 2 * pad_x + 8
-    return (
-        plan,
-        xlo_pad.astype(np.int32),
-        ylo_pad.astype(np.int32),
-    )
+    return plan
 
 
 def plan_target(
@@ -557,38 +537,24 @@ def render_target_batch(
     plane_invz,  # (B, K) descending per-pose ladders
     background,
     plan: "TargetPlan",
-    xlo,  # (ng,) i32 pose-union window origins
-    ylo,  # (ng, nc) i32
     num_planes: int,
     feathering: float = 0.1,
     mask_mode: str = "none",
     to_srgb: bool = True,
-    refine: int = 0,
     raw: bool = False,
 ):
-    """Backend dispatch: Pallas target-ray kernel on TPU, the dense XLA
-    twin elsewhere (same math; the window tables are unused there).
-    Returns (B, out_h, out_w, 4), or per-pose raw tuples."""
-    if jax.default_backend() == "cpu":
-        # the XLA twin has no in-bracket refine; refine=0 is the
-        # production setting (sub-bracket search lowers PSNR, see
-        # RenderConfig.march_refine) so the twin matches it exactly
-        return jax.vmap(
-            lambda ps, pv: render_target_xla(
-                rgb, disp, mask, invz_min, invz_max, ps, pv, background,
-                num_planes, plan.out_w, plan.out_h,
-                feathering=feathering, mask_mode=mask_mode,
-                to_srgb=to_srgb, raw=raw,
-            )
-        )(jnp.asarray(pose_b, jnp.float32),
-          jnp.asarray(plane_invz, jnp.float32))
-    from .pallas.sweep_target import render_target_batch_pallas
-
-    return render_target_batch_pallas(
-        rgb, disp, mask, invz_min, invz_max, pose_b, plane_invz,
-        background, plan, xlo, ylo, num_planes, feathering=feathering,
-        mask_mode=mask_mode, to_srgb=to_srgb, refine=refine, raw=raw,
-    )
+    """Pose batch of the target-ray march with the bracket colour lerp:
+    the vmapped dense XLA implementation. Returns (B, out_h, out_w, 4),
+    or per-pose raw tuples."""
+    return jax.vmap(
+        lambda ps, pv: render_target_xla(
+            rgb, disp, mask, invz_min, invz_max, ps, pv, background,
+            num_planes, plan.out_w, plan.out_h,
+            feathering=feathering, mask_mode=mask_mode,
+            to_srgb=to_srgb, raw=raw,
+        )
+    )(jnp.asarray(pose_b, jnp.float32),
+      jnp.asarray(plane_invz, jnp.float32))
 
 
 @functools.partial(
@@ -607,8 +573,6 @@ def render_target_fetch_batch(
     plane_invz,  # (B, K)
     background,
     plan: "TargetPlan",
-    xlo,
-    ylo,
     num_planes: int,
     feathering: float = 0.1,
     mask_mode: str = "none",
@@ -619,13 +583,13 @@ def render_target_fetch_batch(
     """PRODUCTION target tier: depth-only target-ray march + ONE exact
     packed bilinear color gather at the secant-solved position.
 
-    The in-kernel color pass lerps the two bracketing planes' samples,
+    The bracket color pass (render_target_batch) lerps the two
+    bracketing planes' samples,
     which is only approximate off the snap grid (per-pixel sampling
     phases) — measured +7..13 dB from fetching instead (39.3 -> 46.1 dB
     on the y-dominant random-scene golden; same construction as
     ops/sweep_scaled.render_scaled_fetch_batch and the two-phase Phase
-    B). Also faster: pass 2's 4-channel warps per crossed plane drop to
-    one ~4x-cheaper packed-row gather. Returns (B, out_h, out_w, 4) or
+    B). Returns (B, out_h, out_w, 4) or
     raw (rgba, alpha, hit, invz) tuples."""
     from .sampling import bilinear_sample_packed, pack_rgbm
 
@@ -633,23 +597,13 @@ def render_target_fetch_batch(
     izmin = jnp.asarray(invz_min, jnp.float32)
     izmax = jnp.asarray(invz_max, jnp.float32)
     pose_b = jnp.asarray(pose_b, jnp.float32)
-    if jax.default_backend() == "cpu":
-        found_b, vstar_b = jax.vmap(
-            lambda ps, pv: render_target_xla(
-                rgb, disp, mask, invz_min, invz_max, ps, pv, background,
-                num_planes, plan.out_w, plan.out_h, depth_only=True,
-                refine=refine,
-            )
-        )(pose_b, jnp.asarray(plane_invz, jnp.float32))
-    else:
-        from .pallas.sweep_target import render_target_batch_pallas
-
-        found_b, rstar_b = render_target_batch_pallas(
-            rgb, disp, mask, invz_min, invz_max, pose_b, plane_invz,
-            background, plan, xlo, ylo, num_planes, depth_only=True,
+    found_b, vstar_b = jax.vmap(
+        lambda ps, pv: render_target_xla(
+            rgb, disp, mask, invz_min, invz_max, ps, pv, background,
+            num_planes, plan.out_w, plan.out_h, depth_only=True,
             refine=refine,
         )
-        vstar_b = jnp.where(found_b > 0.0, rstar_b, 0.0)
+    )(pose_b, jnp.asarray(plane_invz, jnp.float32))
 
     packed = pack_rgbm(
         jnp.asarray(rgb, jnp.float32), jnp.asarray(mask, jnp.float32)
@@ -672,7 +626,7 @@ def render_target_fetch_batch(
 
 
 # ---------------------------------------------------------------------------
-# XLA reference (dense, gather-based): golden twin of the kernel
+# the dense, gather-based XLA march (every backend)
 # ---------------------------------------------------------------------------
 
 
@@ -734,10 +688,8 @@ def render_target_xla(
     depth_only: bool = False,
     refine: int = 0,
 ):
-    """Dense XLA twin of the target-ray march kernel (one pose). The
-    golden oracle for kernel tests and the CPU-backend fallback at small
-    sizes; semantics identical (texel-space pass 1, bracket secant,
-    bracket color lerp with k* == 0 snapping to t = 1).
+    """Dense XLA target-ray march (one pose): texel-space pass 1,
+    bracket secant, bracket color lerp with k* == 0 snapping to t = 1.
 
     depth_only=True returns (found (H,W) f32, invz_star (H,W)) with no
     color pass and no finalize — the fetch path's input.
@@ -747,7 +699,7 @@ def render_target_xla(
     sub-plane sample positions are exact lerps). Restores the dense
     ladder's depth accuracy when the plane grid is built with a widened
     step_px: (refine + 1) x the effective density, paid only inside
-    brackets. Matches the Pallas kernel's pass2d sub-sweep exactly."""
+    brackets."""
     h, w = disp.shape
     izmin = jnp.asarray(invz_min, jnp.float32)
     izmax = jnp.asarray(invz_max, jnp.float32)

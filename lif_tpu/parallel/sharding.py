@@ -1,7 +1,7 @@
-"""Multi-chip rendering: image-tile, frame, and projector parallelism.
+"""Multi-device rendering: image-tile, frame, and projector parallelism.
 
 The reference is single-browser/single-GPU (SURVEY.md section 2.5); this is
-the TPU-native scaling design it lacks:
+the scaling design it lacks:
 
   * TILE parallelism (the TP/SP analog): the output framebuffer is sharded
     over a mesh axis; every device renders its row-band of the same virtual
@@ -11,7 +11,7 @@ the TPU-native scaling design it lacks:
     over a mesh axis; each device renders different frames.
   * PROJECTOR (view) parallelism (the EP analog): each device renders a
     different projector; the fused image is a nearest-depth merge across
-    the view axis using `pmax`/`psum` collectives over ICI.
+    the view axis using `pmax`/`psum` collectives.
 
 All entry points take an explicit `jax.sharding.Mesh`; tests exercise them
 on a virtual 8-device CPU mesh.
@@ -26,10 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.6 exports shard_map at the top level
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..core.pose import relative_view_pose
 from ..ops import raycast as _raycast
@@ -248,7 +245,7 @@ def render_fused_projectors(
 
     Each device raycasts ITS projector — the FULL LDI stack, composited
     front-to-back with the reference's mask semantics — then the fused
-    image is assembled with collectives over ICI: the frontmost absolute
+    image is assembled with collectives: the frontmost absolute
     inverse depth via `pmax`, then a tolerance-blended merge with
     weighted `psum`s (_fuse_across_views). This is the multi-projector fusion the reference
     lacks (it renders only the first projector; HoloRenderer.ts:186-189).
@@ -413,7 +410,8 @@ def render_fast_trajectory_sharded(
 ):
     """Data-parallel trajectory rendering on the PRODUCTION fast kernel:
     frames shard over `axis_name`, each device runs the batched march
-    tiers (Pallas on TPU, the XLA oracle elsewhere) on its frame shard
+    tiers (the GPU kernel where backend.march_impl picks it, the XLA
+    implementations elsewhere) on its frame shard
     against replicated source textures. The multi-chip counterpart of
     models.renderer.render_fast_batch; the raycast-kernel variant is
     render_trajectory_sharded.
@@ -423,8 +421,7 @@ def render_fast_trajectory_sharded(
     tier — the flagship trajectory workload), general rotations
     (rotated tier), and skewed frustums. The tier plans are pose-batch
     unions, so every device compiles the SAME program; only the
-    per-pose arrays (c1/rot, snap tables, target pose tables) shard
-    (round-3 VERDICT item 5 lifted the lateral-only restriction).
+    per-pose arrays (c1/rot, snap tables, target pose tables) shard.
 
     `cameras_positions` (F, 3) world camera positions and optional
     `cameras_rotations` (F, 3, 3) world camera rotations; F must divide

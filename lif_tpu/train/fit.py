@@ -22,6 +22,9 @@ import optax
 from ..ops import sweep as _sweep
 from .losses import l2_loss
 
+# 3x3 products in full f32 (a GPU runs a bare f32 matmul in TF32)
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 __all__ = ["FitParams", "TrainState", "make_train_step", "fit_projector"]
 
 
@@ -52,7 +55,8 @@ def _rodrigues(w):
     )
     s = jnp.sin(theta)
     c = jnp.cos(theta)
-    return jnp.eye(3) + s * kx + (1.0 - c) * (kx @ kx)
+    kx2 = jnp.matmul(kx, kx, precision=_HIGHEST)
+    return jnp.eye(3) + s * kx + (1.0 - c) * kx2
 
 
 def render_with_params(
@@ -72,7 +76,9 @@ def render_with_params(
     on top. Batch is handled by broadcasting (never vmap — see
     ops/raycast.py). Output is linear-light (B, out_h, out_w, 3)."""
     d_rot = _rodrigues(params.rotation_delta)
-    rot = jnp.einsum("ij,bjk->bik", d_rot, rel_rotations)
+    rot = jnp.einsum(
+        "ij,bjk->bik", d_rot, rel_rotations, precision=_HIGHEST
+    )
     pos = rel_positions + params.position_delta[None, :]
 
     # The SOFT plane sweep, not the hard march: the march's surface

@@ -3,7 +3,7 @@
 This file is the *golden oracle* for the JAX kernels: it is written directly
 from the GLSL specification (reference: src/shaders/rayCastMonoLDI.glsl and
 rayCastStereoLDI.glsl), shares no code with lif_tpu, and runs in float64.
-Golden-image tests compare the TPU kernels against this at >= 40 dB PSNR
+Golden-image tests compare the render kernels against this at >= 40 dB PSNR
 (the BASELINE.json fidelity gate).
 
 Textures are GL-oriented arrays (row 0 = v0 = bottom), uv in [0,1]^2.

@@ -3,7 +3,7 @@ paths implement the same merge spec — the nearest frontmost surface
 wins, with candidates inside config.fuse_tol relative inverse depth
 blended by triangular weights (hard nearest-wins + tie averaging at
 fuse_tol=0) — and fusion covers the full LDI stack with reference mask
-semantics (VERDICT round-1 item 5)."""
+semantics."""
 
 import numpy as np
 import jax
@@ -88,8 +88,8 @@ def test_fused_fast_matches_sharded_merge(rng):
 
 
 def test_sharded_fusion_ldi_layers(rng):
-    """The sharded fusion composites ALL LDI layers (round-1 weakness:
-    layer-0-only): occluded-layer content must appear where the front
+    """The sharded fusion composites ALL LDI layers (not layer 0
+    only): occluded-layer content must appear where the front
     layer's mask discards it."""
     h, w = 64, 96
     projs = [_proj(rng, h, w, x, layers=2) for x in (-0.02, 0.02)]
@@ -169,9 +169,9 @@ def _smooth_scene(h, w):
 
 def test_fused_fast_skewed_projectors(rng):
     """Skewed projectors AND a skewed camera through the single-chip
-    fused fast path (round-4 VERDICT item 6: the former ValueError is
-    gone): the -f1*(sk1-sk2) fold rides each projector's march exactly
-    as in the batch path, and the result matches the skew-aware exact
+    fused fast path (no longer a ValueError): the -f1*(sk1-sk2) fold
+    rides each projector's march exactly as in the batch path, and the
+    result matches the skew-aware exact
     raycast fusion (render_fused_projectors, the fused oracle).
     Reference: rayCastMonoLDI.glsl:316-332 folds sk1/sk2 into every
     pose."""
@@ -222,9 +222,9 @@ def test_fused_fast_skewed_single_matches_fast_view(rng):
 
 def test_fused_nearest_wins_across_different_baselines(rng):
     """The merge key is ABSOLUTE inverse depth: a projector with surface
-    at 1 m must beat one at 2 m regardless of their baselines (the
-    round-2 review caught a double /baseline that made the FARTHER
-    surface win whenever baselines differed)."""
+    at 1 m must beat one at 2 m regardless of their baselines (a double
+    /baseline once made the FARTHER surface win whenever baselines
+    differed)."""
     h, w = 48, 64
     red = np.zeros((h, w, 3), np.float32); red[..., 0] = 1.0
     green = np.zeros((h, w, 3), np.float32); green[..., 1] = 1.0

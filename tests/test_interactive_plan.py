@@ -1,4 +1,4 @@
-"""Interactive-pose planning (round-4 VERDICT item 5): a NOVEL camera
+"""Interactive-pose planning: a NOVEL camera
 inside a previously planned pose neighborhood must not pay the full
 target-tier host planning cost — the plan is keyed on BUCKETED window
 extents (ops/sweep_target.bucket_extents), so nearby poses share the
@@ -75,8 +75,8 @@ def _plan_one(proj, cam, f2, w, h):
 
 def test_novel_pose_reuses_neighborhood_plan(scene):
     """A nearby-but-new pose (different exact-batch key) must hit the
-    bucketed-extent cache: same TargetPlan object, same window-table
-    arrays — no plan_from_extents rerun, no re-upload, no recompile."""
+    bucketed-extent cache: the same TargetPlan object (a jit static), so
+    no plan_from_extents rerun and no recompile."""
     proj, h, w = scene
     f2 = 0.78 * w
     cam_a = Camera.create(
@@ -97,15 +97,12 @@ def test_novel_pose_reuses_neighborhood_plan(scene):
     # the neighborhood entry was REUSED, not re-created
     assert len(R._TARGET_NEIGHBORHOOD_CACHE) == 1
     assert static_b[0] is static_a[0], "TargetPlan must be shared"
-    assert dyn_b["xlo"] is dyn_a["xlo"], "window tables must be shared"
-    assert dyn_b["ylo"] is dyn_a["ylo"]
+    assert set(dyn_b) == {"pose_sc", "grids"}
 
 
 def test_novel_pose_plan_latency(scene):
     """Planning for an unseen pose inside a warmed neighborhood is
-    host-cheap. The budget is loose for CI variance; the measured
-    number on the bench machine is recorded in BENCH_DETAILS.json
-    (interactive_pose_planning)."""
+    host-cheap. The budget is loose for CI variance."""
     proj, h, w = scene
     f2 = 0.78 * w
     R._TARGET_PLAN_CACHE.clear()

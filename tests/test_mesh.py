@@ -1,6 +1,6 @@
 """Property/golden tests for the connected-mesh triangle rasterizer.
 
-The VERDICT-prescribed gates: flat depth => hole-free homography warp;
+The gates: flat depth => hole-free homography warp;
 magnified view hole-free where the billboard splat path shows gaps;
 gradient cull preserved.
 """

@@ -123,8 +123,8 @@ def test_fast_trajectory_sharded(rng):
 
 
 def test_fast_trajectory_sharded_ldi(rng):
-    """Multi-layer LDI trajectories shard on the fast path (round-2
-    VERDICT item 6 lifted the single-layer restriction): the shard body
+    """Multi-layer LDI trajectories shard on the fast path (not
+    only single-layer ones): the shard body
     composites all layers front-to-back and equals the unsharded
     render_fast_batch frame-for-frame on the virtual mesh."""
     from lif_tpu.models.renderer import render_fast_batch
@@ -159,8 +159,8 @@ def test_fast_trajectory_sharded_ldi(rng):
 
 
 def test_fast_trajectory_sharded_orbit(rng):
-    """Round-3 VERDICT item 5: ORBIT (rotated-pose) trajectories shard
-    across chips on the production fast kernel. The tier plans are
+    """ORBIT (rotated-pose) trajectories shard
+    across devices on the production fast kernel. The tier plans are
     pose-batch unions, so each device compiles the same target/rotated
     tier program; only the per-pose arrays shard. Output must equal the
     unsharded render_fast_batch frame-for-frame, and the routed tier
@@ -197,7 +197,7 @@ def test_fast_trajectory_sharded_orbit(rng):
 
 
 def test_fast_trajectory_sharded_skewed(rng):
-    """Skewed frustums ride the sharded fast path (the round-4 skew fold
+    """Skewed frustums ride the sharded fast path (the skew fold
     works under shard_map: the fold is pose-invariant host math)."""
     from lif_tpu.models.renderer import render_fast_batch
 
@@ -223,7 +223,7 @@ def test_fast_trajectory_sharded_skewed(rng):
 
 
 def test_fused_projectors_view_tile(rng):
-    """Round-3 VERDICT item 9: fusion COMPOSED with tile sharding. On a
+    """Fusion COMPOSED with tile sharding. On a
     (view=4, tile=2) 2-D mesh each device raycasts its projector's
     row-band; the fusion collectives reduce over the view axis per tile.
     Must equal the 1-D view-mesh fusion bit-for-bit."""

@@ -1,10 +1,10 @@
-"""Golden tests for the two-phase rotated march (round 3).
+"""Golden tests for the two-phase rotated march.
 
 Oracle: ops/raycast at high step count (itself golden vs the float64
 GLSL transliteration). The two-phase path must reproduce rotated,
 rotated+translated, pure-rotation, and zoom poses at march-class
-fidelity — the pose families VERDICT r2 flagged at ~35 dB on the old
-matmul-sweep path.
+fidelity — pose families that the matmul-sweep path rendered at
+~35 dB.
 """
 
 import numpy as np
@@ -83,7 +83,7 @@ def _rotz(deg):
 @pytest.mark.parametrize(
     "c1,rot,fr,name,floor",
     [
-        # floors: the lattice-seeded bracket march (round 4) solves the
+        # floors: the lattice-seeded bracket march solves the
         # exact crossing per final ray, so the tier is march-class for
         # the FULL rotation group (measured 59-78 dB vs the 480-step
         # oracle; the old interpolating phase B capped at ~37 dB)

@@ -1,6 +1,6 @@
-"""Skewed-frustum support on the fast march path (VERDICT round-1 item
-8): sk1/sk2 fold into a constant source pre-shift for unrotated views, so
-skewed golden renders pass through render_fast_view instead of raising."""
+"""Skewed-frustum support on the fast march path: sk1/sk2 fold into a
+constant source pre-shift for unrotated views, so skewed golden renders pass
+through render_fast_view instead of raising."""
 
 import numpy as np
 import pytest
@@ -73,7 +73,7 @@ def test_camera_skew_only_stereo_display_case(rng):
 
 
 def test_skew_with_rotation_renders(rng):
-    """Rotated + skewed (round 4): S(sk1)/S(sk2) ride the two-phase
+    """Rotated + skewed: S(sk1)/S(sk2) ride the two-phase
     tier's FSKR sandwiches (reference folds skew into every pose,
     rayCastMonoLDI.glsl:316-332) — the former ValueError is gone."""
     h, w = 64, 96
@@ -97,8 +97,8 @@ def test_skew_with_rotation_renders(rng):
 
 
 def test_skewed_batch_lateral_march(rng):
-    """Skewed pose BATCH through render_fast_batch (round-3 VERDICT item
-    6: the batch entry point raised outright on any skew): the lateral
+    """Skewed pose BATCH through render_fast_batch (the batch entry
+    point once raised outright on any skew): the lateral
     snap-march tier folds the per-layer constant shift exactly like the
     single-view path."""
     from lif_tpu.models.renderer import render_fast_batch
@@ -158,8 +158,8 @@ def test_skewed_batch_rotated_tier(rng):
 
 
 def test_skewed_stereo_rotated_head(rng):
-    """Skewed stereo at a ROTATED head pose (round-3 VERDICT item 6's
-    stereo half: the general-pose skew ValueError is gone): per-eye
+    """Skewed stereo at a ROTATED head pose (no longer a
+    general-pose skew ValueError): per-eye
     source skew + camera skew through the two-phase tier, vs the exact
     two-view kernel."""
     from lif_tpu import render_stereo_fast
@@ -225,7 +225,7 @@ def test_skewed_stereo_fast_scaled_tier(rng):
     layer routes the scaled tier, which must still apply the per-eye
     frustum fold (dx as a constant warp shift, dy via the kernel's
     dy_user) — a dropped fold misaligns the layer by f1*dsk pixels
-    against the exact kernel (review finding, round 3)."""
+    against the exact kernel."""
     from lif_tpu import projector_from_arrays, render_stereo_fast
     from lif_tpu.models.renderer import render_stereo_view
 

@@ -1,27 +1,13 @@
-"""Tests for the Pallas depth-tested billboard scatter (plane-binned
-gather dual of ops/splat.forward_splat; ops/pallas/splat_march.py).
-
-Oracle: forward_splat's UNJITTED evaluation (the eager scatter).
-The compiled scatter is NOT a usable oracle: XLA-CPU's approximate
-reciprocal shifts u by ~5e-6 relative and drops/creates ~2% of hits
-with coverage margins far beyond rounding (measured: a candidate with
-margin -0.14 missed under jit, hit eagerly) — the eager result matches
-the exact f32 semantics. Against the eager oracle the plane-binned
-dual is BIT-EXACT on nonzero lateral poses (the derivation in
-ops/pallas/splat_march.py is an equivalence, not an approximation).
+"""Tests for the batched billboard entry point (render_billboard_fast_batch:
+the XLA depth-tested scatter of ops/splat.forward_splat per pose).
 
 reference: src/shaders/holoVertex.glsl:130-149, 243-273 (billboard
 instanced quads + z-buffer).
 """
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 
-from lif_tpu.ops import splat as sp
-from lif_tpu.ops import sweep_march as sm
-from lif_tpu.ops.pallas import splat_march as bb
 
 IZMIN, IZMAX = 2.0, 0.1
 
@@ -40,106 +26,9 @@ def _smooth_scene(rng, h=64, w=96):
     return rgb, disp.astype(np.float32), np.ones((h, w), np.float32)
 
 
-def _splat_ref(rgb, disp, f1, cx, h, w, point_size=1.0, show_depth=False):
-    # __wrapped__: the eager scatter (see module docstring)
-    return np.asarray(sp.forward_splat.__wrapped__(
-        jnp.asarray(rgb), jnp.asarray(disp), IZMIN, IZMAX, 1.0,
-        f1, f1, w / 2.0, h / 2.0, jnp.eye(3),
-        jnp.asarray([cx, 0.0, 0.0]), f1,
-        w, h, jnp.zeros(4), point_size=point_size, to_srgb=False,
-        show_depth=show_depth,
-    ))
-
-
-def _kernel_out(rgb, disp, mask, f1, cxs, h, w, point_size=1.0,
-                show_depth=False):
-    max_shift = abs(f1) * max(abs(c) for c in cxs) * IZMIN + 4.0
-    plan = sm.translation_plan(w, h, w, h, max_shift, 0.0)
-    ixs, mms, k = bb.billboard_shift_tables(f1, cxs, IZMIN, IZMAX, plan)
-    c1 = np.stack([[c, 0.0, 0.0] for c in cxs]).astype(np.float32)
-    return np.asarray(bb.render_billboard_batch_pallas(
-        jnp.asarray(rgb), jnp.asarray(disp), jnp.asarray(mask),
-        IZMIN, IZMAX, jnp.asarray(c1), float(f1), ixs, mms,
-        jnp.zeros(4), plan, k, cx0=w / 2.0, cy0=h / 2.0,
-        point_size=point_size, to_srgb=False, show_depth=show_depth,
-        interpret=True,
-    ))
-
-
-class TestTables:
-    def test_ladder_integer_and_ordered(self):
-        plan = sm.translation_plan(96, 64, 96, 64, 64.0, 0.0)
-        ixs, mms, k = bb.billboard_shift_tables(
-            74.88, [0.3, -0.2, 0.0], IZMIN, IZMAX, plan
-        )
-        assert ixs.shape == (3, k) and k % 8 == 0
-        # shifts are integers; ladder ordered near -> far (descending
-        # invz): m descending for positive cx, ascending for negative
-        assert np.all(mms == np.round(mms))
-        a0 = 74.88 * 0.3
-        real0 = int(np.ceil(a0 * (IZMIN - IZMAX)))
-        d0 = np.diff(mms[0])[: real0 - 1]
-        assert np.all(d0 <= 0)
-        d1 = np.diff(mms[1])[: real0 - 1]
-        assert np.all(d1 >= 0)
-
-    def test_plan_covers_shifts(self):
-        plan = sm.translation_plan(96, 64, 96, 64, 64.0, 0.0)
-        ixs, mms, k = bb.billboard_shift_tables(
-            74.88, [0.4], IZMIN, IZMAX, plan
-        )
-        assert ixs.min() >= 0 and ixs.max() <= plan.tab_span_x
-        # the clip preserved every real shift (no corrupted m)
-        assert np.all(mms[0] == plan.pad_lo_x - ixs[0])
-
-
-class TestKernelParity:
-    @pytest.mark.parametrize("cx", [0.25, -0.18, 0.0])
-    def test_matches_xla_scatter(self, rng, cx):
-        h, w = 64, 96
-        rgb, disp, mask = _smooth_scene(rng, h, w)
-        f1 = 0.78 * w
-        ref = _splat_ref(rgb, disp, f1, cx, h, w)
-        out = _kernel_out(rgb, disp, mask, f1, [cx], h, w)[0]
-        hit_r = ref[..., 3] > 0.5
-        hit_k = out[..., 3] > 0.5
-        disagree = (hit_r != hit_k).mean()
-        # the dual is an equivalence: bit-exact vs the eager scatter
-        # (a tiny slack tolerates FMA-contraction boundary flips of the
-        # interpret path on other toolchains)
-        assert disagree < 1e-3, disagree
-        both = hit_r & hit_k
-        col_mismatch = (
-            np.abs(out[..., :3] - ref[..., :3]).max(axis=-1) > 1e-6
-        ) & both
-        assert col_mismatch.mean() < 1e-3, col_mismatch.mean()
-
-    def test_batch_poses_consistent(self, rng):
-        """A 3-pose batch must equal three 1-pose calls (the pose axis
-        shares one resident window; results must not bleed)."""
-        h, w = 64, 96
-        rgb, disp, mask = _smooth_scene(rng, h, w)
-        f1 = 0.78 * w
-        cxs = [0.25, -0.18, 0.05]
-        batch = _kernel_out(rgb, disp, mask, f1, cxs, h, w)
-        for i, cx in enumerate(cxs):
-            single = _kernel_out(rgb, disp, mask, f1, [cx], h, w)[0]
-            assert np.array_equal(batch[i], single)
-
-    def test_show_depth(self, rng):
-        h, w = 64, 96
-        rgb, disp, mask = _smooth_scene(rng, h, w)
-        f1 = 0.78 * w
-        ref = _splat_ref(rgb, disp, f1, 0.25, h, w, show_depth=True)
-        out = _kernel_out(rgb, disp, mask, f1, [0.25], h, w,
-                          show_depth=True)[0]
-        both = (ref[..., 3] > 0.5) & (out[..., 3] > 0.5)
-        mism = (np.abs(out[..., 0] - ref[..., 0]) > 1e-6) & both
-        assert mism.mean() < 1e-3
-
-
 class TestRendererEntry:
     def test_cpu_fallback_matches_per_frame(self, rng):
+        """The batch equals per-frame render(mode='billboard')."""
         from lif_tpu import Camera, projector_from_arrays
         from lif_tpu.models.renderer import (
             render,

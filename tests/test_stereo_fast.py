@@ -151,7 +151,7 @@ def test_stereo_fast_ldi_masked(rng):
     keep = ~dis
     mse = np.mean((exact[..., :3][keep] - fast[..., :3][keep]) ** 2)
     p = 10 * np.log10(1.0 / max(float(mse), 1e-12))
-    # round 4: the confidence-keyed occlusion fill (_stretch_conf — the
+    # the confidence-keyed occlusion fill (_stretch_conf — the
     # exact kernel's stretch-mark rule instead of the crossing flag)
     # lifted this from 30-class to 42.6 dB and zeroed the discard flips
     assert p >= 40.0, f"only {p:.1f} dB vs the exact stereo kernel (masked)"
@@ -190,7 +190,7 @@ def test_stereo_fast_rotated_pose(rng):
     """Rotated head pose: each eye routes through the two-phase rotated
     march tier; the blend lattice matches the exact two-view kernel —
     the reference's default full-rate arbitrary-pose stereo
-    (rayCastStereoLDI.glsl:368-436; round-2 VERDICT item 4)."""
+    (rayCastStereoLDI.glsl:368-436)."""
     h, w = 96, 128
     eye = 0.03
     left, right = _pair(rng, h, w, eye)

@@ -1,4 +1,4 @@
-"""Tests for the gather-free MXU fast sweep renderer."""
+"""Tests for the gather-free matmul fast sweep renderer."""
 
 import numpy as np
 import pytest
@@ -139,8 +139,8 @@ def test_solve_depth_aligned(rng):
 
 
 def test_sweep_fallback_warns(rng):
-    """A layer demoted to the approximate plane sweep must WARN (round-3
-    VERDICT weak 6: a silent 15 dB drop for library callers). The scene:
+    """A layer demoted to the approximate plane sweep must WARN (a
+    silent 15 dB drop would hide from library callers). The scene:
     a rotated pose too large for the march tiers at this tiny scale, so
     the matched-focal layer falls back to the sweep."""
     import warnings

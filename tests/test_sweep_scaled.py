@@ -1,9 +1,9 @@
-"""Golden tests for the SCALED first-crossing march (round 3).
+"""Golden tests for the SCALED first-crossing march.
 
 Oracle chain: ops/raycast (golden vs the float64 reference renderer) ->
-sweep_scaled XLA oracle (this file: >=40 dB vs the high-step march on
-dolly / diagonal / zoom poses) -> the Pallas kernel (interpret-mode
-equality with the oracle; real-TPU parity exercised by the bench).
+sweep_scaled XLA implementation (this file: >=40 dB vs the high-step
+march on dolly / diagonal / zoom poses, and against the float64
+reference shader directly).
 """
 
 import numpy as np
@@ -110,7 +110,7 @@ def test_heavily_outpainted_layer_scaled_path(rng):
     """A source much TALLER than the scaled window's reach (big outpaint
     margins) must still plan and render: ScaledPlan.padded_h used to be
     window-reach only, so _pad_stack's top pad went NEGATIVE and jnp.pad
-    raised at trace time instead of rendering (round-3 review finding).
+    raised at trace time instead of rendering.
     The extra rows sit beyond every window's displacement clip, so
     fidelity is unchanged — golden vs the exact march."""
     from lif_tpu import Camera, projector_from_arrays
@@ -138,51 +138,58 @@ def test_heavily_outpainted_layer_scaled_path(rng):
     assert p > 40.0, f"outpainted scaled path only {p:.1f} dB"
 
 
-def test_pallas_kernel_equals_oracle_interpret(rng):
-    """The Pallas kernel (interpret mode) matches the XLA oracle — the
-    candidate-offset decomposition is the same bilinear warp."""
-    from lif_tpu.ops.pallas.sweep_scaled import render_scaled_batch_pallas
+def reference64(rgb, disp, mask, izmin, izmax, f1, c1, rot1, w, h,
+                f2=None, steps=320):
+    """The float64 transliteration of the reference shader
+    (tests/reference_renderer.py) at `steps` march steps: an oracle
+    independent of every JAX code path."""
+    from tests import reference_renderer as ref
 
-    c1s = np.array([[0.03, 0.01, 0.02], [0.05, 0.0, 0.0]], np.float32)
-    rgb, disp, mask, izmin, izmax, f1, plan, grid, k = _setup(
-        rng, [0.05, 0.01, 0.02], h=128, w=64
+    layer = dict(
+        rgb=np.asarray(rgb, np.float64), disp=np.asarray(disp, np.float64),
+        mask=np.asarray(mask, np.float64), res=(w, h), invz_min=izmin,
+        invz_max=izmax, focal=f1,
     )
-    grids, k = sweep_scaled.parallax_step_grids_batch(
-        f1, c1s, 1.0, disp.shape[1], disp.shape[0], izmin, izmax
-    )
-    kern = np.asarray(
-        render_scaled_batch_pallas(
-            rgb, disp, mask, izmin, izmax, c1s, f1, 1.0, grids,
-            jnp.zeros(4), plan, k, mask_mode="none", interpret=True,
+    saved = ref.NUM_STEPS
+    ref.NUM_STEPS = steps
+    try:
+        return ref.render_mono_reference(
+            [layer], np.zeros(2), np.asarray(c1, np.float64),
+            np.asarray(rot1, np.float64), f1 if f2 is None else f2,
+            np.zeros(2), w, h, mask_mode="none",
         )
-    )
-    for i, c1 in enumerate(c1s):
-        ora = np.asarray(
-            sweep_scaled.render_scaled_xla(
-                rgb, disp, mask, izmin, izmax, c1, f1, 1.0, grids[i],
-                jnp.zeros(4), plan, k, mask_mode="none",
-            )
-        )
-        err = np.abs(kern[i] - ora).max()
-        assert err < 1e-4, f"pose {i}: kernel vs oracle max err {err}"
+    finally:
+        ref.NUM_STEPS = saved
 
 
-def test_pallas_depth_only_interpret(rng):
-    """depth_only kernel output matches the oracle's depth solve."""
-    from lif_tpu.ops.pallas.sweep_scaled import render_scaled_batch_pallas
-
-    c1s = np.array([[0.04, 0.01, 0.03]], np.float32)
+@pytest.mark.parametrize(
+    "c1,depth_only",
+    [
+        ([0.03, 0.01, 0.02], False),
+        ([0.05, 0.0, 0.0], False),
+        ([0.04, 0.01, 0.03], True),
+    ],
+)
+def test_twin_matches_float64_reference(rng, c1, depth_only):
+    """The scaled-march twin on the cases its tiled kernel was checked
+    on, against the float64 reference shader: the full-colour bracket
+    lerp, and the depth-only solve through the production colour fetch."""
+    c1 = np.asarray(c1, np.float32)
     rgb, disp, mask, izmin, izmax, f1, plan, grid, k = _setup(
-        rng, [0.04, 0.01, 0.03], h=128, w=64
+        rng, c1, h=128, w=64
     )
-    found_k, izs_k = render_scaled_batch_pallas(
-        rgb, disp, mask, izmin, izmax, c1s, f1, 1.0, grid,
-        jnp.zeros(4), plan, k, mask_mode="none", depth_only=True,
-        interpret=True,
-    )
-    found_o, izs_o = sweep_scaled.render_scaled_xla(
-        rgb, disp, mask, izmin, izmax, c1s[0], f1, 1.0, grid,
-        jnp.zeros(4), plan, k, mask_mode="none", depth_only=True,
-    )
-    assert np.allclose(np.asarray(found_k[0]), np.asarray(found_o))
-    assert np.abs(np.asarray(izs_k[0]) - np.asarray(izs_o)).max() < 1e-4
+    h, w = disp.shape
+    if depth_only:
+        out = np.asarray(sweep_scaled.render_scaled_fetch_batch(
+            rgb, disp, mask, izmin, izmax, c1[None], f1, 1.0, grid,
+            jnp.zeros(4), plan, k, mask_mode="none",
+        ))[0]
+    else:
+        out = np.asarray(sweep_scaled.render_scaled_xla(
+            rgb, disp, mask, izmin, izmax, c1, f1, 1.0, grid,
+            jnp.zeros(4), plan, k, mask_mode="none", refine=2,
+        ))
+    want = reference64(rgb, disp, mask, izmin, izmax, f1, c1, np.eye(3),
+                       w, h)
+    sl = np.s_[10:-10, 10:-10]
+    assert _psnr(out[sl], want[sl]) > 38.0
